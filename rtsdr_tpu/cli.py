@@ -56,7 +56,7 @@ def main(argv=None) -> int:
                    choices=("1", "2", "4", "8", "auto"), metavar="N",
                    help="run the PLL loop filter every N-th sample with "
                         "bandwidth-preserving gains (NCO stays full-rate): "
-                        "~N x faster carrier recovery on TPU.  'auto' = 2, "
+                        "a ~N x shorter loop chain.  'auto' = 2, "
                         "the widest division whose measured lock envelope "
                         "(tools/pll_envelope.py, PERF.md) is clean for "
                         "both loops: +/-200 Hz at the 19 kHz pilot and "
@@ -129,6 +129,10 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", plat.split(",")[0])
+
+    from rtsdr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from rtsdr_tpu.config import MODE1_RDS, MODES
     from rtsdr_tpu.io.stream import StreamRunner

@@ -38,7 +38,7 @@ class BatchRunner:
         self.rx = Receiver(cfg, (self.n,), dtype, **kwargs)
         # TWO staging buffers, alternated per block: jnp.asarray may
         # alias the numpy buffer (CPU backend) or still be DMA-ing it
-        # (TPU) when the loop body returns, so refilling a single buffer
+        # (GPU) when the loop body returns, so refilling a single buffer
         # on the next iteration races the in-flight step — observed as
         # intermittent O(1) corruption of tens of samples under load.
         # Alternation is sufficient, not just lucky: draining step b's

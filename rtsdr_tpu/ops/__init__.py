@@ -29,6 +29,6 @@ from rtsdr_tpu.ops.fir import (  # noqa: F401
 )
 from rtsdr_tpu.ops.fourier import dft, magnitude  # noqa: F401
 from rtsdr_tpu.ops.iir import deemphasize, first_order_iir  # noqa: F401
-from rtsdr_tpu.ops.ingestfir import ingest_fir_decimate  # noqa: F401
+from rtsdr_tpu.ops.paths import choose  # noqa: F401
 from rtsdr_tpu.ops.pll import PLLState, pll, pll_init  # noqa: F401
 from rtsdr_tpu.ops.psd import estimate_psd  # noqa: F401

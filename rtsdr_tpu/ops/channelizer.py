@@ -13,10 +13,16 @@ polyphase form
     u_p[m]  = sum_j h[j*K + p] * x[m*K - p - j*K]
 
 i.e. per-phase FIR over the decimated phase planes followed by a length-K
-inverse DFT across phases — ``K * ifft(u, axis=phase)``.  Both pieces are
-TPU-shaped: the phase-plane construction is one pad + reshape + flip (no
-gathers), the branch FIR is a t-term FMA chain over (M, K) planes, and
-the IDFT is a tiny batched FFT.
+inverse DFT across phases — ``K * ifft(u, axis=phase)``.  The phase-plane
+construction is one pad + reshape + flip (no gathers), the branch FIR is
+a t-term FMA chain over (M, K) planes, and the IDFT is a tiny batched
+FFT.
+
+The raw-byte paths (``pfb_channelize_u8``, ``composed_channelize_u8``)
+run their banded matmul on float32 operands at full float32 precision
+(``ops.paths.PRECISION``): the byte normalization (b - 128)/128 is exact
+in float32, and a TF32 or bf16 operand would put a ~1e-3 relative error
+on every station before its RF filter (NUMERICS.md).
 
 Streaming: the carried state is the last ``t*K + K - 1`` input samples
 (the phase-plane window tail), so chained blocks are exactly equal to one
@@ -25,15 +31,12 @@ long call (tested).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rtsdr_tpu.ops.coeffs import lowpass_taps
+from rtsdr_tpu.ops.paths import PRECISION
 
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 16,
@@ -129,7 +132,7 @@ def pfb_channelize_u8(
     any complex intermediate ever materializes.  Output-equivalent to
     normalize -> complex -> ``pfb_channelize`` (float32 rounding only;
     the t-term complex FMA chain of that path re-reads its (M, K)
-    planes t times — tens of ms per step at production widths on v5e).
+    planes t times).
 
     raw_u8: (..., 2*N) interleaved IQ; zi_raw: (..., 2*(t*K + K - 1))
     carried byte tail (prepend-halo streaming; start from
@@ -154,7 +157,6 @@ def pfb_channelize_u8(
     batch = raw_u8.shape[:-1]
     span = 2 * k * (block - 1 + t)
     stride = 2 * k * block
-    on_tpu = jax.default_backend() == "tpu"
 
     # right-pad so both slabs reshape exactly (value 128 -> 0, and the
     # pad rows multiply zero filter-matrix entries anyway); folding the
@@ -166,8 +168,6 @@ def pfb_channelize_u8(
                             if pad_n else []), axis=-1)
 
     def norm(b):
-        if on_tpu:
-            return b.astype(jnp.bfloat16) - 128.0
         return (b.astype(jnp.float32) - 128.0) * (1.0 / 128.0)
 
     # windows[s] = x_ext[2k + s*stride : + span]: span <= 2*stride, so
@@ -188,10 +188,9 @@ def pfb_channelize_u8(
     i_idx = np.arange(block)[:, None]
     n_idx = np.arange(t * k)[None, :]
     r_even = 2 * ((i_idx + t) * k - 1 - n_idx)  # (block, t*k) byte rows
-    scale = 1.0 / 128.0 if on_tpu else 1.0  # fold normalize on TPU
     h_mat = np.zeros((span, block * k * 2), np.float64)
     for ch in range(k):
-        c = h64 * np.exp(2j * np.pi * n_idx[0] * ch / k) * scale
+        c = h64 * np.exp(2j * np.pi * n_idx[0] * ch / k)
         cr = np.broadcast_to(c.real, r_even.shape)
         ci = np.broadcast_to(c.imag, r_even.shape)
         col_re = np.broadcast_to(ch * 2 * block + i_idx, r_even.shape)
@@ -200,11 +199,10 @@ def pfb_channelize_u8(
         h_mat[rs + 1, col_re.ravel()] = -ci.ravel()
         h_mat[rs, col_re.ravel() + block] = ci.ravel()
         h_mat[rs + 1, col_re.ravel() + block] = cr.ravel()
-    h_j = jnp.asarray(h_mat, jnp.bfloat16 if on_tpu else jnp.float32)
-
     y = jax.lax.dot_general(
-        windows, h_j,
+        windows, jnp.asarray(h_mat, jnp.float32),
         dimension_numbers=(((windows.ndim - 1,), (0,)), ((), ())),
+        precision=PRECISION,
         preferred_element_type=jnp.float32)  # (..., nblk, K*2*block)
     y = y.reshape(*batch, nblk, k, 2, block)
     y = jnp.moveaxis(y, -4, -2)             # (..., K, 2, nblk, block)
@@ -236,8 +234,8 @@ def composed_rf_taps(
     its RF front end once per retuned dongle (src/fm_radio.cpp:31-147);
     here ALL K stations' front ends and the channelizer are one filter
     bank — no channel-rate intermediate (at K=16/B=8 production widths
-    the two-stage path wrote + re-read + transposed a 157 MB float
-    plane; measured 5.6 ms of a 7.5 ms step, tools/profile_channelizer).
+    the two-stage path writes, re-reads and transposes a 157 MB float
+    plane).
 
     ``offsets_hz`` (length K, off-grid stations): mixing between the
     stages commutes into the composition exactly —
@@ -277,146 +275,12 @@ def composed_zi_u8(g_len: int, batch_shape: tuple = ()) -> jax.Array:
     return jnp.full((*batch_shape, 2 * (g_len - 1)), 128, jnp.uint8)
 
 
-def _composed_h_mat(g: np.ndarray, d: int, block: int,
-                    scale: float) -> np.ndarray:
-    """(span_b, K*2*block) banded byte-domain matrix for the composed
-    filter bank: column (ch, quad, i) reads complex window offset
-    o = d*i + (L-1) - t for tap t (bijective in t per column)."""
-    k, g_l = g.shape
-    span_b = 2 * (d * (block - 1) + g_l)
-    i_idx = np.arange(block)[:, None]
-    t_idx = np.arange(g_l)[None, :]
-    o = d * i_idx + (g_l - 1) - t_idx
-    h_mat = np.zeros((span_b, block * k * 2), np.float64)
-    for ch in range(k):
-        c = g[ch] * scale
-        cr = np.broadcast_to(c.real, o.shape)
-        ci = np.broadcast_to(c.imag, o.shape)
-        col_re = np.broadcast_to(ch * 2 * block + i_idx, o.shape)
-        rs = 2 * o.ravel()
-        h_mat[rs, col_re.ravel()] = cr.ravel()
-        h_mat[rs + 1, col_re.ravel()] = -ci.ravel()
-        h_mat[rs, col_re.ravel() + block] = ci.ravel()
-        h_mat[rs + 1, col_re.ravel() + block] = cr.ravel()
-    return h_mat
-
-
-def _composed_kernel(a_ref, b_ref, h_ref, o_ref, w_ref, *,
-                     rowt: int, stride_b: int, n_pieces: int):
-    """One (capture, row-tile) step of the composed filter bank.
-
-    Row r of the im2col operand is the byte window starting at
-    r*stride_b; consecutive windows overlap by span-stride, so the
-    whole (rowt, n_pieces*stride_b) operand assembles from the A-tile
-    and its successor tile with SUBLANE ROLLS only (piece p of row r is
-    input row r+p):  A_p = where(row < rowt-p, roll(a, -p), roll(b, -p))
-    — no gathers, no HBM im2col.  The banded weight stays VMEM-resident
-    across the whole grid (constant index map), so the HBM traffic is
-    the raw bytes once plus the small IF-rate output: the XLA windows
-    formulation instead re-streams its 10 MB weight per M-tile and
-    materializes a 155 MB windows buffer (measured 1.65 ms; see
-    PERF.md round-5)."""
-    a = a_ref[0].astype(jnp.bfloat16) - 128.0
-    b = b_ref[0].astype(jnp.bfloat16) - 128.0
-    rows = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0)
-    for p in range(n_pieces):
-        w_ref[:, p * stride_b:(p + 1) * stride_b] = jnp.where(
-            rows < rowt - p, pltpu.roll(a, -p, 0), pltpu.roll(b, -p, 0))
-    o_ref[0] = jax.lax.dot_general(
-        w_ref[...], h_ref[...],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-
-
-_PALLAS_BLOCK = 8      # outputs per im2col row
-_PALLAS_ROWT = 256     # im2col rows per grid step (M tile)
-
-
-def _try_pallas_composed(raw_u8, g, zi_raw, decim, force: bool = False):
-    """Route to the Pallas composed kernel; None if ineligible."""
-    k, g_l = g.shape
-    d = decim * k
-    block = _PALLAS_BLOCK
-    stride_b = 2 * d * block
-    span_b = 2 * (d * (block - 1) + g_l)
-    n_pieces = -(-span_b // stride_b)
-    n = raw_u8.shape[-1] // 2
-    cols = k * 2 * block
-    rowt = _PALLAS_ROWT
-    ok = (raw_u8.dtype == jnp.uint8
-          and n % d == 0 and (n // d) % block == 0
-          and stride_b % 128 == 0 and cols % 128 == 0
-          and n_pieces <= rowt
-          # weight + operand scratch must fit VMEM comfortably
-          and n_pieces * stride_b * (rowt + cols) * 2 <= 12 << 20
-          and (jax.default_backend() == "tpu" or force))
-    if not ok:
-        return None
-    p_out = n // d
-    rows = p_out // block
-    rows_padded = -(-rows // rowt) * rowt
-    rows_alloc = rows_padded + rowt
-    batch = raw_u8.shape[:-1]
-    bsz = int(np.prod(batch)) if batch else 1
-    r2 = raw_u8.reshape(bsz, -1)
-    z2 = zi_raw.reshape(bsz, -1)
-    total = rows_alloc * stride_b
-    pad_n = total - z2.shape[-1] - r2.shape[-1]
-    assert pad_n >= 0
-    x_ext = jnp.concatenate(
-        [z2, r2, jnp.full((bsz, pad_n), 128, jnp.uint8)], axis=-1
-    ).reshape(bsz, rows_alloc, stride_b)
-
-    h_mat = _composed_h_mat(g, d, block, 1.0 / 128.0)
-    h_pad = np.zeros((n_pieces * stride_b, cols), np.float64)
-    h_pad[:h_mat.shape[0]] = h_mat
-    h_j = jnp.asarray(h_pad, jnp.bfloat16)
-
-    y = _pallas_composed(x_ext, h_j, stride_b, n_pieces, rowt)
-    y = y[:, :rows].reshape(bsz, rows, k, 2, block)
-    y = jnp.moveaxis(y, -4, -2).reshape(*batch, k, 2, p_out)
-    return y, raw_u8[..., -2 * (g_l - 1):]
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4), inline=True)
-def _pallas_composed(x_ext, h_j, stride_b: int, n_pieces: int, rowt: int):
-    """x_ext: (B, rows_alloc, stride_b) u8 rows (window r = rows r..r+2
-    concatenated, trailing tiles are 128-pad); h_j: (n_pieces*stride_b,
-    cols) bf16.  Returns (B, rows_padded, cols) f32."""
-    bsz, rows_alloc, _ = x_ext.shape
-    rows_padded = rows_alloc - rowt
-    cols = h_j.shape[1]
-    grid = (bsz, rows_padded // rowt)
-    kern = functools.partial(_composed_kernel, rowt=rowt,
-                             stride_b=stride_b, n_pieces=n_pieces)
-    return pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, rowt, stride_b), lambda b, j: (b, j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rowt, stride_b), lambda b, j: (b, j + 1, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(h_j.shape, lambda b, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, rowt, cols), lambda b, j: (b, j, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((bsz, rows_padded, cols),
-                                       jnp.float32),
-        scratch_shapes=[pltpu.VMEM((rowt, n_pieces * stride_b),
-                                   jnp.bfloat16)],
-        interpret=jax.default_backend() != "tpu",
-    )(x_ext, x_ext, h_j)
-
-
 def composed_channelize_u8(
     raw_u8: jax.Array,
     g: np.ndarray,
     zi_raw: jax.Array,
     decim: int,
     block: int = 16,
-    impl: str = "auto",
 ) -> tuple[jax.Array, jax.Array]:
     """K stations' channelizer + RF front-end LPF + decimate in ONE
     banded matmul over the raw wideband bytes.
@@ -432,23 +296,7 @@ def composed_channelize_u8(
     ((..., K, 2, P) float32 decimated station I/Q at the IF rate,
     P = N/(decim*K), and the new byte tail) — feed receivers built with
     ``frontend_impl='if'``.
-
-    ``impl``: 'auto' takes the Pallas kernel on TPU when the geometry
-    fits (in-VMEM im2col via sublane rolls, VMEM-resident weight — see
-    ``_composed_kernel``), else the XLA windows+dot; 'pallas' forces
-    the kernel (error if ineligible), 'xla' the windows path.
     """
-    assert impl in ("auto", "pallas", "xla")
-    if impl != "xla":
-        out = _try_pallas_composed(raw_u8, g, zi_raw, decim,
-                                   force=impl == "pallas")
-        if out is not None:
-            return out
-        if impl == "pallas":
-            raise ValueError(
-                f"composed impl='pallas' ineligible: shape "
-                f"{raw_u8.shape}, K={g.shape[0]}, L={g.shape[1]}, "
-                f"decim={decim}")
     k, g_l = g.shape
     d = decim * k                       # complex samples per output
     assert zi_raw.shape[-1] == 2 * (g_l - 1)
@@ -463,7 +311,6 @@ def composed_channelize_u8(
     assert n_slabs <= 3, "window too long for the slab construction"
     nblk = p_out // block
     batch = raw_u8.shape[:-1]
-    on_tpu = jax.default_backend() == "tpu"
 
     need = n_slabs * stride_b + (nblk - 1) * stride_b
     pad_n = max(0, need - (zi_raw.shape[-1] + raw_u8.shape[-1]))
@@ -472,8 +319,6 @@ def composed_channelize_u8(
                             if pad_n else []), axis=-1)
 
     def norm(b):
-        if on_tpu:
-            return b.astype(jnp.bfloat16) - 128.0
         return (b.astype(jnp.float32) - 128.0) * (1.0 / 128.0)
 
     def slab(off):
@@ -491,10 +336,9 @@ def composed_channelize_u8(
     i_idx = np.arange(block)[:, None]
     t_idx = np.arange(g_l)[None, :]
     o = d * i_idx + (g_l - 1) - t_idx          # (block, L) complex rows
-    scale = 1.0 / 128.0 if on_tpu else 1.0
     h_mat = np.zeros((span_b, block * k * 2), np.float64)
     for ch in range(k):
-        c = g[ch] * scale                       # (L,)
+        c = g[ch]                               # (L,)
         cr = np.broadcast_to(c.real, o.shape)
         ci = np.broadcast_to(c.imag, o.shape)
         col_re = np.broadcast_to(ch * 2 * block + i_idx, o.shape)
@@ -503,11 +347,10 @@ def composed_channelize_u8(
         h_mat[rs + 1, col_re.ravel()] = -ci.ravel()
         h_mat[rs, col_re.ravel() + block] = ci.ravel()
         h_mat[rs + 1, col_re.ravel() + block] = cr.ravel()
-    h_j = jnp.asarray(h_mat, jnp.bfloat16 if on_tpu else jnp.float32)
-
     y = jax.lax.dot_general(
-        windows, h_j,
+        windows, jnp.asarray(h_mat, jnp.float32),
         dimension_numbers=(((windows.ndim - 1,), (0,)), ((), ())),
+        precision=PRECISION,
         preferred_element_type=jnp.float32)     # (..., nblk, K*2*block)
     y = y.reshape(*batch, nblk, k, 2, block)
     y = jnp.moveaxis(y, -4, -2)                 # (..., K, 2, nblk, block)

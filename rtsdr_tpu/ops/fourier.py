@@ -1,6 +1,6 @@
 """Spectrum utilities (reference src/fourier.cpp:15-33).
 
-The reference implements an O(N^2) DFT and a magnitude helper; on TPU both
+The reference implements an O(N^2) DFT and a magnitude helper; here both
 are thin wrappers over the batched FFT (XLA's native lowering), kept for
 API parity and for the PSD/observability path.
 """

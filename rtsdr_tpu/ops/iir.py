@@ -7,7 +7,7 @@ treble is exaggerated.  A one-pole IIR
 
     y[n] = b * x[n] + a * y[n-1]
 
-is a linear recurrence, which on TPU runs as ``jax.lax.associative_scan``
+is a linear recurrence, which here runs as ``jax.lax.associative_scan``
 over (a, b*x) pairs — O(log N) depth, fully parallel — instead of a
 per-sample loop.  Block continuity carries y[-1].
 """

@@ -1,12 +1,13 @@
-"""PLL / NCO carrier recovery as a ``lax.scan`` recurrence.
+"""PLL / NCO carrier recovery: a ``lax.scan`` recurrence, or its GPU kernel.
 
 Faithful to the golden model ``fmPll`` (model/fmPll.py:4-49): first-order
 loop with an atan2 phase detector, PI loop filter (Cp=2.666, Ci=3.555,
 Kp=B*Cp, Ki=B^2*Ci), and an NCO emitting cos/sin(trigArg*ncoScale +
 phaseAdjust).  The recurrence is inherently sequential per channel —
-throughput on TPU comes from ``vmap``/sharding across channels (each scan
-step is a VPU-vectorized op over the batch), not from parallelizing a single
-loop (SURVEY.md §7 "hard parts" #1).
+throughput comes from batching and sharding across channels, not from
+parallelizing a single loop (SURVEY.md §7 "hard parts" #1).  On the GPU
+the float32 loop runs as one Pallas kernel that keeps each lane's state
+in registers (``ops/pll_kernel.py``); ``lax.scan`` is the reference.
 
 Improvements over the reference, deliberate (SURVEY.md §7):
 
@@ -32,6 +33,9 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
+
+from rtsdr_tpu.ops import paths
 
 
 class PLLState(NamedTuple):
@@ -58,6 +62,21 @@ def pll_init(batch_shape: tuple = (), dtype=jnp.float32) -> PLLState:
                     nco_i=o, nco_q=z, theta=z)
 
 
+def _loop_constants(freq, fs, nco_scale, phase_adjust, norm_bandwidth,
+                    loop_div):
+    """Float64 host values of the per-lane loop constants (kp, ki, dtheta,
+    nco_scale, phase_adjust), each broadcastable to the batch shape.
+
+    ``loop_div`` scales the gains so the loop bandwidth in Hz is unchanged
+    at the decimated update rate."""
+    cp, ci = 2.666, 3.555
+    nb64 = np.asarray(norm_bandwidth, np.float64) * loop_div
+    return (nb64 * cp, nb64 * nb64 * ci,
+            2.0 * math.pi * np.asarray(freq, np.float64) / fs,
+            np.asarray(nco_scale, np.float64),
+            np.asarray(phase_adjust, np.float64))
+
+
 def pll(
     x: jax.Array,
     state: PLLState,
@@ -68,22 +87,23 @@ def pll(
     phase_adjust: float = 0.0,
     norm_bandwidth: float = 0.01,
     unroll: int = 2,
-    impl: str = "scan",
+    impl: str = "auto",
     delay_output: bool = True,
     loop_div: int = 1,
+    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array, PLLState]:
     """Run the PLL over one block.
 
     Args:
       x: (..., N) real input (band-passed pilot / squared carrier); or a
         TUPLE of equal-shape arrays, treated exactly as
-        ``jnp.stack(x, axis=0)`` — the Pallas path then reads the parts
-        directly instead of materializing the stacked copy (the receiver
-        feeds the stereo-pilot + RDS-carrier pair this way).
+        ``jnp.stack(x, axis=0)`` (the receiver feeds the stereo-pilot +
+        RDS-carrier pair this way).
       state: PLLState with fields shaped (...,).
-      impl: 'scan' (lax.scan, any backend/dtype), 'pallas' (TPU kernel,
-        much lower loop overhead; interpret-mode elsewhere), or 'auto'
-        (pallas for float32 on TPU, else scan).
+      impl: 'scan' (``lax.scan``, any platform and dtype), 'kernel' (the
+        GPU Pallas kernel, ``ops/pll_kernel.py``) or 'auto' (default:
+        ``ops.paths.choose('pll', dtype)``).
+      interpret: run the kernel in Pallas interpret mode (tests only).
       delay_output: True (default) reproduces the golden model's
         ``ncoOut[0:N]`` mixer view.  Because ``ncoOut`` entries are
         one-indexed (ncoOut[k+1] holds the NCO at sample k), this view is
@@ -95,11 +115,9 @@ def pll(
         detector samples the error process ``loop_div`` x more sparsely
         and the PI gains are scaled (norm_bandwidth x loop_div at the
         decimated update rate) so the loop's bandwidth in Hz is
-        unchanged.  The recurrence is latency-bound on TPU, so the PLL
-        stage's wall-time drops by ~loop_div; lock/tracking behavior is
-        preserved within the loop's own noise (tests assert stereo
-        separation and RDS sync parity at div<=4).  N must be divisible
-        by loop_div.
+        unchanged.  Lock/tracking behavior is preserved within the loop's
+        own noise (tests assert stereo separation and RDS sync parity at
+        div<=4).  N must be divisible by loop_div.
 
     Returns:
       nco_i, nco_q: (..., N) NCO outputs *delayed by one sample* (the
@@ -107,38 +125,33 @@ def pll(
         last NCO sample).
       new_state.
     """
-    x_dtype = x[0].dtype if isinstance(x, (tuple, list)) else x.dtype
+    parts = list(x) if isinstance(x, (tuple, list)) else [x]
+    if any(p.shape != parts[0].shape or p.dtype != parts[0].dtype
+           for p in parts[1:]):
+        raise ValueError(
+            "pll tuple input requires equal shapes/dtypes, got "
+            f"{[(p.shape, p.dtype) for p in parts]}")
+    dtype = parts[0].dtype
     if impl == "auto":
-        use_pallas = (jax.default_backend() == "tpu"
-                      and x_dtype == jnp.float32)
-    else:
-        use_pallas = impl == "pallas"
-    if use_pallas:
-        from rtsdr_tpu.ops.pallas_pll import pll_pallas
-
-        return pll_pallas(
-            x, state, freq=freq, fs=fs, nco_scale=nco_scale,
-            phase_adjust=phase_adjust, norm_bandwidth=norm_bandwidth,
-            delay_output=delay_output, loop_div=loop_div)
-    if isinstance(x, (tuple, list)):
-        x = jnp.stack(x, axis=0)
-    dtype = x.dtype
-    cp, ci = 2.666, 3.555
+        impl = paths.choose("pll", dtype)
+    if impl not in ("scan", "kernel"):
+        raise ValueError(f"unknown pll impl {impl!r}")
+    if loop_div < 1 or parts[0].shape[-1] % loop_div:
+        raise ValueError(f"block length {parts[0].shape[-1]} is not a "
+                         f"multiple of loop_div {loop_div}")
+    consts = _loop_constants(freq, fs, nco_scale, phase_adjust,
+                             norm_bandwidth, loop_div)
+    if impl == "kernel":
+        return _pll_kernel(parts, state, consts, delay_output, loop_div,
+                           interpret)
+    x = parts[0] if len(parts) == 1 else jnp.stack(parts, axis=0)
     # freq / norm_bandwidth / nco_scale / phase_adjust may be arrays
     # broadcastable to the batch shape (fusing differently-configured loop
     # instances into one call — e.g. the stereo pilot and RDS carrier
     # loops); per-lane numerics are identical to separate calls because the
     # derived constants are computed in float64 host-side, then cast.
-    import numpy as np
-
-    assert loop_div >= 1 and x.shape[-1] % loop_div == 0
-    nb64 = np.asarray(norm_bandwidth, np.float64) * loop_div
-    f64 = np.asarray(freq, np.float64)
-    kp = jnp.asarray(np.asarray(nb64 * cp)).astype(dtype)
-    ki = jnp.asarray(np.asarray(nb64 * nb64 * ci)).astype(dtype)
-    dtheta = jnp.asarray(np.asarray(2.0 * math.pi * f64 / fs)).astype(dtype)
-    scale = jnp.asarray(np.asarray(nco_scale, np.float64)).astype(dtype)
-    adjust = jnp.asarray(np.asarray(phase_adjust, np.float64)).astype(dtype)
+    kp, ki, dtheta, scale, adjust = (jnp.asarray(v).astype(dtype)
+                                     for v in consts)
     four_pi = jnp.asarray(_FOUR_PI, dtype)
 
     # time-major for scan: (N, ...)
@@ -210,6 +223,46 @@ def pll(
     return nco_i, nco_q, new_state
 
 
+def _pll_kernel(parts, state, consts, delay_output, loop_div, interpret):
+    """``pll`` through the GPU kernel (``ops/pll_kernel.py``): the kernel
+    runs the recurrence over the flattened lanes; the NCO synthesis and
+    the delayed view are the scan's own expressions, in XLA."""
+    from rtsdr_tpu.ops.pll_kernel import lane_rows, pll_args
+
+    n = parts[0].shape[-1]
+    batch = ((len(parts),) if len(parts) > 1 else ()) + parts[0].shape[:-1]
+    c = math.prod(batch)
+    dtype = parts[0].dtype
+    x = jnp.concatenate([p.reshape(-1, n) for p in parts], axis=0)
+    flat = lambda v: jnp.broadcast_to(v, batch).reshape(c)
+    st = jnp.stack([flat(state.integrator), flat(state.phase_est),
+                    flat(state.theta),
+                    flat(jnp.arctan2(state.fb_q, state.fb_i))]).astype(dtype)
+    kp, ki, dtheta, scale, adjust = consts
+    args, so = pll_args(x, lane_rows((kp, ki, dtheta), batch, dtype), st,
+                        loop_div=loop_div, interpret=interpret)
+    args = args.reshape(*batch, n)
+    scale = jnp.asarray(np.broadcast_to(scale, batch), dtype)[..., None]
+    adjust = jnp.asarray(np.broadcast_to(adjust, batch), dtype)[..., None]
+    nco_arg = args * scale + adjust
+    nco_i_new, nco_q_new = jnp.cos(nco_arg), jnp.sin(nco_arg)
+    if delay_output:
+        nco_i = jnp.concatenate([jnp.broadcast_to(state.nco_i, batch)[..., None],
+                                 nco_i_new[..., :-1]], axis=-1)
+        nco_q = jnp.concatenate([jnp.broadcast_to(state.nco_q, batch)[..., None],
+                                 nco_q_new[..., :-1]], axis=-1)
+    else:
+        nco_i, nco_q = nco_i_new, nco_q_new
+    unflat = lambda v: v.reshape(batch)
+    arg_end = unflat(so[3])
+    new_state = PLLState(
+        integrator=unflat(so[0]), phase_est=unflat(so[1]),
+        fb_i=jnp.cos(arg_end), fb_q=jnp.sin(arg_end),
+        nco_i=nco_i_new[..., -1], nco_q=nco_q_new[..., -1],
+        theta=unflat(so[2]))
+    return nco_i, nco_q, new_state
+
+
 def pll_extrapolate_by(
     state: PLLState,
     theta_advance,
@@ -233,8 +286,6 @@ def pll_extrapolate_by(
     the state's batch shape (time-sharded receivers extrapolate each shard
     by its own offset in one call).
     """
-    import numpy as np
-
     dtype = state.phase_est.dtype
     four_pi = jnp.asarray(_FOUR_PI, dtype)
     theta = jnp.mod(state.theta + jnp.asarray(theta_advance, dtype), four_pi)
@@ -266,12 +317,9 @@ def pll_extrapolate(
     (parallel/timeshard.py ``pll_handoff='stale'|'iterate'``): each time
     shard seeds its chunk from the exact end-of-previous-block carry,
     extrapolated across its own start offset — removing the sequential
-    shard-to-shard pipeline (the Amdahl term in SCALING_r02.json's
-    ici_comm_model) at the cost of a lock-transient approximation instead
+    shard-to-shard pipeline (the Amdahl term of time sharding) at the cost of a lock-transient approximation instead
     of bit-exact parity.  See ``pll_extrapolate_by`` for the math.
     """
-    import numpy as np
-
     dth = np.mod(2.0 * np.pi * np.float64(freq) / np.float64(fs)
                  * np.float64(n_steps), 2.0 * _FOUR_PI) % _FOUR_PI
     return pll_extrapolate_by(state, dth, float(n_steps),

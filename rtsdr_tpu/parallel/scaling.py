@@ -2,9 +2,10 @@
 
 Measures blocks/sec of the channel-sharded receiver at 1..N devices and
 reports efficiency vs linear scaling (BASELINE.md target: >=80% at 1 chip /
-1 host / N>=2 hosts).  On a single-chip dev box this runs on the virtual
-CPU mesh to validate the harness and the sharding's communication-freeness;
-on a pod slice the same code measures real ICI scaling.
+1 host / N>=2 hosts).  On a machine with one accelerator this runs on the
+virtual CPU mesh to validate the harness and the sharding's
+communication-freeness; on several cards the same code measures real
+scaling.
 """
 
 from __future__ import annotations

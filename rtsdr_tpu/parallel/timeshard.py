@@ -7,8 +7,7 @@ block is additionally split into T chunks across the mesh's ``t`` axis:
   * every FIR/resampler's carried state is the last ``taps-1`` input-domain
     samples — pure data — so chunk t's state is chunk t-1's input tail,
     exchanged with one small ``ppermute`` per stage (the halo-exchange
-    analog of ring/context parallelism; ~150 floats x channels per hop,
-    riding ICI);
+    analog of ring/context parallelism; ~150 floats x channels per hop);
   * the FM discriminator's 1-sample state is the same pattern on the IF
     stream;
   * the PLL recurrence cannot be data-parallelized exactly, so its state
@@ -19,15 +18,11 @@ block is additionally split into T chunks across the mesh's ``t`` axis:
   * the tiny RDS bit layer runs replicated after an ``all_gather`` of the
     57 kS/s RRC chunks.
 
-Outputs and updated state are bit-identical to the serial receiver
-(`tests/test_timeshard.py` asserts equality), so time sharding is purely a
-deployment choice.  One scoping note for TPU: stages whose fast-kernel
-eligibility depends on the *per-shard* shape (the RDS mixer+resampler,
-``ops/pallas_fir.py::resample_mul2``) can pick a different dot grouping
-than the serial receiver's full-block call, which differs at bf16
-operand scale (~1e-3 relative) at those stage outputs — the raw-halo
-ingest stays bitwise because its s8 accumulation is integer-exact.
-Force ``resamp_impl='xla'`` on both receivers for strict cross-checks.
+Outputs and updated state equal the serial receiver's — bit for bit in
+float64, to float32 rounding in float32, where a matmul's summation order
+depends on how many rows a shard holds (`tests/test_timeshard.py`) — so
+time sharding is purely a deployment choice.  Every stage runs the same op, chosen the same way
+(``ops.paths.choose``), as the serial receiver.
 """
 
 from __future__ import annotations
@@ -43,9 +38,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from rtsdr_tpu.config import ReceiverConfig
 from rtsdr_tpu.ops import coeffs
 from rtsdr_tpu.ops.demod import fm_discriminator
-from rtsdr_tpu.ops.fir import fir_decimate, fir_resample, fir_block
+from rtsdr_tpu.ops.fir import (
+    _upsampled_tail_of,
+    fir_block,
+    fir_decimate,
+    fir_resample,
+)
 from rtsdr_tpu.ops.iir import deemphasize
-from rtsdr_tpu.ops.ingestfir import ingest_fir_decimate
 from rtsdr_tpu.ops.pll import pll, pll_extrapolate_by
 from rtsdr_tpu.parallel.mesh import CHANNEL_AXIS, TIME_AXIS
 from rtsdr_tpu.pipeline.audio import AudioState
@@ -59,16 +58,6 @@ from rtsdr_tpu.pipeline.receiver import (
 )
 
 
-def _upsampled_tail(x: jax.Array, n: int, up: int) -> jax.Array:
-    """Last n samples of zero-stuff(x, up) without materializing it."""
-    if up == 1:
-        return x[..., -n:]
-    k = -(-n // up)  # ceil
-    u = jnp.zeros((*x.shape[:-1], k * up), x.dtype)
-    u = u.at[..., ::up].set(x[..., -k:])
-    return u[..., -n:]
-
-
 def make_time_sharded_receiver(
     cfg: ReceiverConfig,
     mesh: Mesh,
@@ -80,10 +69,7 @@ def make_time_sharded_receiver(
     offset_mode: str = "hold",
     use_abs_clock: bool = False,
     resync: bool = False,
-    pll_impl: str = "auto",
     deemphasis: float | None = None,
-    ingest_impl: str = "auto",
-    resamp_impl: str = "auto",
     pll_handoff: str = "exact",
     pll_loop_div: int = 1,
     error_correct: bool = False,
@@ -98,9 +84,9 @@ def make_time_sharded_receiver(
 
     ``pll_handoff``:
       * ``'exact'`` (default): the PLL state pipelines shard-to-shard
-        within the step (``pll_chain``) — bit-identical to the serial
-        receiver, but the scan wall-time does not shrink with T (the
-        Amdahl term quantified in SCALING_r02.json ``ici_comm_model``).
+        within the step (``pll_chain``) — equal to the serial
+        receiver, but the loop's wall-time does not shrink with T (an
+        Amdahl term).
       * ``'stale'``: every shard scans its chunk concurrently, seeded from
         the exact end-of-previous-block carry (replicated on every shard)
         extrapolated at the locked slope across the shard's own start
@@ -149,26 +135,10 @@ def make_time_sharded_receiver(
         cfg, (n_channels,), dtype, enable_rds=enable_rds,
         enable_frame=enable_frame, offset_mode=offset_mode,
         use_abs_clock=use_abs_clock, deemphasis=deemphasis,
-        resamp_impl=resamp_impl, error_correct=error_correct,
-        stereo_blend=stereo_blend, derotate=derotate)
+        error_correct=error_correct, stereo_blend=stereo_blend,
+        derotate=derotate)
 
     # coefficients (host constants, closed over)
-    if ingest_impl == "auto":
-        # the bitwise-equality guarantee of the raw-halo scheme needs
-        # each chunk's output count to preserve the banded matmul's
-        # 128-output block grouping (ops/ingestfir.py)
-        ingest_impl = ("fused" if dtype == jnp.float32
-                       and jax.default_backend() == "tpu"
-                       and chunk_if % 128 == 0 else "split")
-    assert ingest_impl in ("fused", "split")
-    if ingest_impl == "fused":
-        # explicit request: fail loudly instead of silently demoting
-        assert dtype == jnp.float32, (
-            "fused ingest computes in float32/bf16; use split for f64")
-        assert chunk_if % 128 == 0, (
-            f"fused ingest needs if_len/T ({chunk_if}) % 128 == 0 to stay "
-            "bitwise-equal to the serial receiver; use ingest_impl='split'")
-    fused_ingest = ingest_impl == "fused"
     rf_h = coeffs.lowpass_taps(cfg.rf.fs, cfg.rf.fc, cfg.rf.taps)
     up, down = cfg.mono.up, cfg.mono.down
     a_taps = cfg.mono.taps * up
@@ -282,39 +252,16 @@ def make_time_sharded_receiver(
             return nco_i, nco_q, final
 
         # ---- ingest + front end ----
-        # same impl auto-select as the serial frontend: the fused
-        # raw-uint8 banded-matmul FIR on TPU (halos are the normalized
-        # I/Q tails of the left neighbor's raw chunk — identical values
-        # to the split path's carried zi), split elsewhere
-        if fused_ingest:
-            # raw-byte halo: prepend the left neighbor's tail so every
-            # output is a pure window dot — bitwise identical to the
-            # serial fused ingest (the zi boundary matmul applies only on
-            # shard 0, masked to zeros elsewhere = exact +0.0 no-op)
-            t1 = cfg.rf.taps - 1
-            tail_raw = raw_u8[..., -2 * t1:]
-            halo_bytes = first_or(jnp.full_like(tail_raw, 128),
-                                  send_right(tail_raw))
-            raw_ext = jnp.concatenate([halo_bytes, raw_u8], axis=-1)
-            zi_i_eff = first_or(state.frontend.zi_i,
-                                jnp.zeros_like(state.frontend.zi_i))
-            zi_q_eff = first_or(state.frontend.zi_q,
-                                jnp.zeros_like(state.frontend.zi_q))
-            if_i, if_q, zi_i_new, zi_q_new = ingest_fir_decimate(
-                raw_ext, rf_h, zi_i_eff, zi_q_eff, cfg.rf.decim, halo=True)
-            zi_i_new = from_last(zi_i_new)
-            zi_q_new = from_last(zi_q_new)
-        else:
-            pairs = raw_u8.reshape(*raw_u8.shape[:-1], -1, 2)
-            iq = (jnp.swapaxes(pairs, -1, -2).astype(dtype)
-                  - 128.0) * (1.0 / 128.0)
-            zi_fe = jnp.stack([state.frontend.zi_i, state.frontend.zi_q],
-                              axis=-2)
-            iq_ds, zi_fe_new = halo_fir(fir_decimate, iq, rf_h, zi_fe,
-                                        cfg.rf.decim)
-            if_i, if_q = iq_ds[..., 0, :], iq_ds[..., 1, :]
-            zi_i_new = zi_fe_new[..., 0, :]
-            zi_q_new = zi_fe_new[..., 1, :]
+        pairs = raw_u8.reshape(*raw_u8.shape[:-1], -1, 2)
+        iq = (jnp.swapaxes(pairs, -1, -2).astype(dtype)
+              - 128.0) * (1.0 / 128.0)
+        zi_fe = jnp.stack([state.frontend.zi_i, state.frontend.zi_q],
+                          axis=-2)
+        iq_ds, zi_fe_new = halo_fir(fir_decimate, iq, rf_h, zi_fe,
+                                    cfg.rf.decim)
+        if_i, if_q = iq_ds[..., 0, :], iq_ds[..., 1, :]
+        zi_i_new = zi_fe_new[..., 0, :]
+        zi_q_new = zi_fe_new[..., 1, :]
 
         prev_local = jnp.stack([if_i[..., -1], if_q[..., -1]], axis=-1)
         prev_recv = send_right(prev_local)
@@ -326,7 +273,7 @@ def make_time_sharded_receiver(
             prev_i=from_last(pi), prev_q=from_last(pq))
 
         # ---- mono ----
-        fm_u_tail = _upsampled_tail(fm, a_taps - 1, up)
+        fm_u_tail = _upsampled_tail_of(fm, a_taps - 1, up)
         mono, mono_zi = halo_fir(fir_resample, fm, audio_h,
                                  state.audio.mono_zi, up, down,
                                  tail=fm_u_tail)
@@ -339,11 +286,10 @@ def make_time_sharded_receiver(
             pilot, state.audio.pll,
             freq=pcfg.freq, fs=cfg.rf.if_fs,
             nco_scale=pcfg.nco_scale, phase_adjust=pcfg.phase_adjust,
-            norm_bandwidth=pcfg.norm_bandwidth, impl=pll_impl,
-            loop_div=pll_loop_div)
+            norm_bandwidth=pcfg.norm_bandwidth, loop_div=pll_loop_div)
         chan, chan_zi = halo_fir(fir_block, fm, chan_h, state.audio.chan_zi)
         mixed = 2.0 * chan * nco
-        st_u_tail = _upsampled_tail(mixed, a_taps - 1, up)
+        st_u_tail = _upsampled_tail_of(mixed, a_taps - 1, up)
         stereo, stereo_zi = halo_fir(fir_resample, mixed, audio_h,
                                      state.audio.stereo_zi, up, down,
                                      tail=st_u_tail)
@@ -395,27 +341,17 @@ def make_time_sharded_receiver(
                 pre_pll, state.rds.pll,
                 freq=rp.freq, fs=cfg.rf.if_fs,
                 nco_scale=rp.nco_scale, phase_adjust=rp.phase_adjust,
-                norm_bandwidth=rp.norm_bandwidth, impl=pll_impl,
-                loop_div=pll_loop_div)
-            # mixer fused into the polyphase resampler (same fast kernel
-            # as the serial receiver, pipeline/rds.py); the halo is the
-            # left neighbor's carry, computed by the op's own tail helper
-            # so it is definitionally the value resample_mul2 returns as
-            # new_zi — the (..., 2, N) mixed chunk never materializes on
-            # the fused path
-            from rtsdr_tpu.ops.pallas_fir import (
-                resample_mul2,
-                resample_mul2_tail,
-            )
-
-            mix_u_tail = resample_mul2_tail(extract, nco_i, nco_q,
-                                            comb_taps - 1, cfg.rds.up)
-            resamp_zi_eff = first_or(state.rds.resamp_zi,
-                                     send_right(mix_u_tail))
-            resamp, resamp_zi_loc = resample_mul2(
-                extract, nco_i, nco_q, comb_h, resamp_zi_eff,
-                cfg.rds.up, cfg.rds.down, impl=resamp_impl)
-            resamp_zi = from_last(resamp_zi_loc)
+                norm_bandwidth=rp.norm_bandwidth, loop_div=pll_loop_div)
+            # I/Q mixers + composed resampler, as the serial receiver
+            # (pipeline/rds.py); the halo is the left neighbor's
+            # upsampled-domain tail
+            mixed_rds = 2.0 * extract[..., None, :] * jnp.stack(
+                [nco_i, nco_q], axis=-2)
+            mix_u_tail = _upsampled_tail_of(mixed_rds, comb_taps - 1,
+                                            cfg.rds.up)
+            resamp, resamp_zi = halo_fir(fir_resample, mixed_rds, comb_h,
+                                         state.rds.resamp_zi, cfg.rds.up,
+                                         cfg.rds.down, tail=mix_u_tail)
             rrc, rrc_zi = halo_fir(fir_block, resamp, rrc_h,
                                    state.rds.rrc_zi)
             rds_state = RDSState(

@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from rtsdr_tpu.config import ReceiverConfig
+from rtsdr_tpu.ops.paths import PRECISION
 
 # RDS parity-check matrix H (26 x 10) over GF(2) and the four offset-word
 # syndromes, from the RDS standard (as used at model/fmRDSblock.py:50 and
@@ -437,8 +438,8 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
 
         # symbols = rrc[offset::24].  r_len = s_max*sps exactly, so the
         # reshape (s_max, sps) holds every phase; selecting the offset
-        # column via a one-hot sum is gather-free (vmapped per-channel
-        # gathers are slow on TPU) and exact.  Track mode can produce
+        # column via a one-hot sum is gather-free (no vmapped per-channel
+        # gather) and exact.  Track mode can produce
         # offset == sps (== phase 0 one symbol later): fold the dropped
         # first symbol in with a validity mask.
         phases_i = rrc_i.reshape(s_max, sps)
@@ -520,8 +521,7 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
         # (model/fmRDSblock.py:233-250) ----
         # All symbol indexing below is via the static even/odd planes —
         # start_pos only selects between two statically-sliced variants, so
-        # there are NO data-dependent gathers (vmapped per-channel gathers
-        # are slow on TPU).
+        # there are NO data-dependent (vmapped per-channel) gathers.
         def same_sign(a, b):
             return ((a > 0) & (b > 0)) | ((a < 0) & (b < 0))
 
@@ -591,19 +591,20 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
         # Column 26 (= ext[w + 26]) is not part of the 26-bit syndrome
         # window; it rides along so the 27-bit carry below is one one-hot
         # row-select of this matrix instead of a vmapped dynamic_slice
-        # (which lowers to a slow per-channel gather on TPU).
+        # (which lowers to a per-channel gather).
         windows27 = jnp.stack(
             [jax.lax.slice_in_dim(ext, j, j + w_max, axis=0)
              for j in range(CARRY_BITS)], axis=1)
         windows = windows27[:, :26]
-        # GF(2) syndrome: one matmul over every window at once.  Computed in
-        # float32 so it rides the MXU (int32 dots do not); sums are <= 26 so
-        # float32 is exact.
+        # GF(2) syndrome: one matmul over every window at once, in float32
+        # at full precision (sums are <= 26, exact).  Every dot of this
+        # layer asks for PRECISION: a TF32 operand cannot hold the 16-bit
+        # info and error words below.
         synd = jnp.mod(
             jax.lax.dot_general(
                 windows.astype(jnp.float32), h_mat.astype(jnp.float32),
                 dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32),
+                precision=PRECISION, preferred_element_type=jnp.float32),
             2.0).astype(i32)
         match = jnp.all(synd[:, None, :] == synds[None, :, :], axis=-1)
         sid = jnp.where(jnp.any(match, axis=-1),
@@ -616,17 +617,18 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
         # real capture the info word is window bits 0..15.  One exact
         # float32 matvec, no gathers.
         pow2 = jnp.asarray(2.0 ** np.arange(15, -1, -1), jnp.float32)
-        info_word = (windows27[:, :16].astype(jnp.float32) @ pow2).astype(i32)
+        info_word = jnp.matmul(windows27[:, :16].astype(jnp.float32), pow2,
+                               precision=PRECISION).astype(i32)
 
         if error_correct:
             # burst correction: error syndrome = syndrome XOR offset-word
             # syndrome; a hit in the (collision-free) burst table repairs
             # the block.  All arithmetic rides the same exact-float32
             # dots as the syndrome matmul: the 1024-entry lookup is a
-            # one-hot contraction, not a gather (vmapped per-channel
-            # gathers are slow on TPU).
+            # one-hot contraction, not a (vmapped per-channel) gather.
             pow2s = jnp.asarray(2.0 ** np.arange(9, -1, -1), jnp.float32)
-            synd_int = (synd.astype(jnp.float32) @ pow2s).astype(i32)
+            synd_int = jnp.matmul(synd.astype(jnp.float32), pow2s,
+                                  precision=PRECISION).astype(i32)
             offs_np = np.asarray(
                 SYNDROMES if with_cprime else SYNDROMES[:4])
             off_int = jnp.asarray(
@@ -635,9 +637,13 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
             flag_np, errinfo_np, errspan_np = _burst_table()
             eq = (e_syn[..., None]
                   == jnp.arange(1024, dtype=i32)).astype(jnp.float32)
-            corr_ok = eq @ jnp.asarray(flag_np, jnp.float32)    # (W, O)
-            err_info = eq @ jnp.asarray(errinfo_np, jnp.float32)
-            err_span = eq @ jnp.asarray(errspan_np, jnp.float32)
+            def lookup(table):                                  # (W, O)
+                return jnp.matmul(eq, jnp.asarray(table, jnp.float32),
+                                  precision=PRECISION)
+
+            corr_ok = lookup(flag_np)
+            err_info = lookup(errinfo_np)
+            err_span = lookup(errspan_np)
             # several offset words usually "explain" a corrupted block
             # (chance table hits); the SHORTEST burst is the credible
             # repair — accept it only when it is strictly shortest
@@ -670,7 +676,8 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
         # of windows27 (gather-free; the float32 dot is exact for 0/1 data)
         row_hot = (w == n_windows - 1).astype(jnp.float32)
         carry_new = jnp.einsum(
-            "w,wj->j", row_hot, windows27.astype(jnp.float32)).astype(i32)
+            "w,wj->j", row_hot, windows27.astype(jnp.float32),
+            precision=PRECISION).astype(i32)
         base_new = state.base_pos + n_windows - 1
 
         outputs = FrameOutputs(

@@ -5,23 +5,19 @@ Replaces the reference rf_thread (src/fm_radio.cpp:31-147): deinterleave,
 then the discriminator.  Coefficients are computed once at build time, not
 per block (reference quirk at src/fm_radio.cpp:75).
 
-Three implementations:
-  * 'split'  — normalize/deinterleave then a batched I+Q decimating FIR
-               (the reference's C7 "fused I+Q" kernel is here simply a
-               batched leading dim); dtype-general, used on CPU/float64.
-  * 'fused'  — ``ops.ingestfir``: the banded-matmul FIR consumes the raw
-               interleaved uint8 directly (no float copies of the 2.4 MS/s
-               stream); float32, default on TPU.
-  * 'iq'     — input is already float I/Q stacked as (..., 2, n) — the
-               wideband channelizer's per-channel baseband
-               (pipeline/wideband.py); skips normalize/deinterleave.
-  * 'if'     — input is already RF-FILTERED AND DECIMATED float I/Q
-               stacked as (..., 2, if_len) — the composed
-               channelizer+RF kernel's output
-               (ops.channelizer.composed_channelize_u8); only the
-               discriminator runs here (the FIR state fields ride along
-               untouched so the state pytree keeps one shape across
-               impls).
+Inputs, by ``impl``:
+  * 'u8'  — raw interleaved uint8 IQ: normalize and deinterleave, then a
+            batched I+Q decimating FIR (the reference's C7 "fused I+Q"
+            kernel is here simply a batched leading dim; XLA fuses the
+            normalize into the filter's operand).
+  * 'iq'  — float I/Q stacked as (..., 2, n): the wideband channelizer's
+            per-channel baseband (pipeline/wideband.py); skips
+            normalize/deinterleave.
+  * 'if'  — RF-filtered and decimated float I/Q stacked as (..., 2,
+            if_len): the composed channelizer's output
+            (ops.channelizer.composed_channelize_u8); only the
+            discriminator runs here (the FIR state fields ride along
+            untouched so the state pytree keeps one shape).
 """
 
 from __future__ import annotations
@@ -35,7 +31,6 @@ from rtsdr_tpu.config import ReceiverConfig
 from rtsdr_tpu.ops import coeffs
 from rtsdr_tpu.ops.demod import demod_init, fm_discriminator
 from rtsdr_tpu.ops.fir import fir_decimate, fir_zi
-from rtsdr_tpu.ops.ingestfir import ingest_fir_decimate
 
 
 class FrontendState(NamedTuple):
@@ -57,53 +52,40 @@ def frontend_init(cfg: ReceiverConfig, batch_shape: tuple = (),
 
 
 def rf_lpf_taps(cfg: ReceiverConfig):
-    """The RF front-end LPF (single source of truth — the receiver's
-    fused ingest paths consume the SAME design)."""
+    """The RF front-end LPF (single source of truth — the wideband
+    composed channelizer folds in the SAME design)."""
     return coeffs.lowpass_taps(cfg.rf.fs, cfg.rf.fc, cfg.rf.taps)
 
 
-def make_frontend(cfg: ReceiverConfig, dtype=jnp.float32, impl: str = "auto"):
-    """Returns ``frontend(state, raw_u8) -> (fm_demod, new_state)``.
+def make_frontend(cfg: ReceiverConfig, dtype=jnp.float32, impl: str = "u8"):
+    """Returns ``frontend(state, raw) -> (fm_demod, new_state)``.
 
-    raw_u8: (..., block_size) interleaved uint8; fm_demod: (..., if_len).
+    raw: (..., block_size) interleaved uint8 for impl='u8'; fm_demod:
+    (..., if_len).
     """
     rf_h = rf_lpf_taps(cfg)
     decim = cfg.rf.decim
-    if impl == "auto":
-        impl = ("fused" if jax.default_backend() == "tpu"
-                and dtype == jnp.float32 else "split")
-    assert impl in ("fused", "split", "iq", "if")
+    if impl not in ("u8", "iq", "if"):
+        raise ValueError(f"unknown frontend impl {impl!r}")
 
-    def frontend(state: FrontendState, raw_u8: jax.Array):
+    def frontend(state: FrontendState, raw: jax.Array):
         if impl == "if":
             fm, (pi, pq) = fm_discriminator(
-                raw_u8[..., 0, :], raw_u8[..., 1, :],
+                raw[..., 0, :], raw[..., 1, :],
                 (state.prev_i, state.prev_q))
             return fm, state._replace(prev_i=pi, prev_q=pq)
-        if impl == "fused":
-            # single kernel: ingest + RF FIR + discriminator — the
-            # decimated I/Q streams never round-trip HBM (falls back to
-            # the split ops off the eligible Pallas geometry)
-            from rtsdr_tpu.ops.ingestfir import ingest_fir_demod
-
-            fm, zi_i, zi_q, pi, pq = ingest_fir_demod(
-                raw_u8, rf_h, state.zi_i, state.zi_q,
-                state.prev_i, state.prev_q, decim)
-            return fm, FrontendState(zi_i=zi_i, zi_q=zi_q,
-                                     prev_i=pi, prev_q=pq)
+        if impl == "iq":
+            iq = raw  # already float (..., 2, n)
         else:
-            if impl == "iq":
-                iq = raw_u8  # already float (..., 2, n)
-            else:
-                pairs = raw_u8.reshape(*raw_u8.shape[:-1], -1, 2)
-                iq = (jnp.swapaxes(pairs, -1, -2).astype(dtype)
-                      - 128.0) * (1.0 / 128.0)
-            zi = jnp.stack([state.zi_i, state.zi_q], axis=-2)
-            iq_ds, zi_new = fir_decimate(iq, rf_h, zi, decim)
-            i_ds = iq_ds[..., 0, :]
-            q_ds = iq_ds[..., 1, :]
-            zi_i = zi_new[..., 0, :]
-            zi_q = zi_new[..., 1, :]
+            pairs = raw.reshape(*raw.shape[:-1], -1, 2)
+            iq = (jnp.swapaxes(pairs, -1, -2).astype(dtype)
+                  - 128.0) * (1.0 / 128.0)
+        zi = jnp.stack([state.zi_i, state.zi_q], axis=-2)
+        iq_ds, zi_new = fir_decimate(iq, rf_h, zi, decim)
+        i_ds = iq_ds[..., 0, :]
+        q_ds = iq_ds[..., 1, :]
+        zi_i = zi_new[..., 0, :]
+        zi_q = zi_new[..., 1, :]
         fm, (pi, pq) = fm_discriminator(i_ds, q_ds,
                                         (state.prev_i, state.prev_q))
         new_state = FrontendState(zi_i=zi_i, zi_q=zi_q, prev_i=pi, prev_q=pq)

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from rtsdr_tpu.config import ReceiverConfig
 from rtsdr_tpu.ops import coeffs
-from rtsdr_tpu.ops.fir import fir_block, fir_zi, resample_zi
+from rtsdr_tpu.ops.fir import fir_block, fir_resample, fir_zi, resample_zi
 from rtsdr_tpu.ops.pll import PLLState, pll, pll_init
 
 
@@ -52,8 +52,6 @@ def composed_resampler_taps(cfg: ReceiverConfig):
     """
     import numpy as np
 
-    from rtsdr_tpu.ops import coeffs
-
     r = cfg.rds
     if_fs = cfg.rf.if_fs
     lpf_h = np.asarray(coeffs.lowpass_taps(if_fs, r.lpf_fc, r.taps),
@@ -79,8 +77,7 @@ def rds_init(cfg: ReceiverConfig, batch_shape: tuple = (),
     )
 
 
-def make_rds(cfg: ReceiverConfig, pll_impl: str = "auto",
-             resamp_impl: str = "auto", pll_loop_div: int = 1):
+def make_rds(cfg: ReceiverConfig, pll_loop_div: int = 1):
     """Returns ``rds(state, fm_demod) -> ((rrc_i, rrc_q), new_state)``.
 
     fm_demod: (..., if_len); rrc outputs: (..., rds_len) at 57 kS/s.
@@ -97,46 +94,33 @@ def make_rds(cfg: ReceiverConfig, pll_impl: str = "auto",
 
     def rds(state: RDSState, fm: jax.Array,
             extract: jax.Array | None = None,
-            nco_pre: tuple | None = None,
-            fm_tail: jax.Array | None = None):
+            nco_pre: tuple | None = None):
         # the receiver may pass `extract` precomputed (3-fused with the
-        # stereo pilot/channel band-passes over the same fm input — or
-        # fused all the way into the ingest kernel, in which case fm is
-        # None and only its tail arrives) and the carrier NCO
-        # precomputed (PLL fused with the stereo pilot loop);
-        # nco_pre = (nco_i, nco_q, pll_state, squared_zi)
+        # stereo pilot/channel band-passes over the same fm input) and
+        # the carrier NCO precomputed (PLL fused with the stereo pilot
+        # loop); nco_pre = (nco_i, nco_q, pll_state, squared_zi)
         if extract is None:
             extract, extract_zi = fir_block(fm, extract_h, state.extract_zi)
-        elif fm_tail is not None:
-            extract_zi = fm_tail[..., -(r.taps - 1):]
         else:
             extract_zi = jnp.concatenate(
                 [state.extract_zi, fm], axis=-1)[..., -(r.taps - 1):]
         if nco_pre is not None:
             nco_i, nco_q, pll_state, squared_zi = nco_pre
         else:
-            from rtsdr_tpu.ops.pallas_fir import fir_block_pre
-
-            pre_pll, squared_zi = fir_block_pre(extract, squared_h,
-                                                state.squared_zi, "square")
+            pre_pll, squared_zi = fir_block(extract * extract, squared_h,
+                                            state.squared_zi)
             nco_i, nco_q, pll_state = pll(
                 pre_pll, state.pll, freq=pcfg.freq, fs=if_fs,
                 nco_scale=pcfg.nco_scale, phase_adjust=pcfg.phase_adjust,
-                norm_bandwidth=pcfg.norm_bandwidth, impl=pll_impl,
-                loop_div=pll_loop_div)
+                norm_bandwidth=pcfg.norm_bandwidth, loop_div=pll_loop_div)
 
-        # I/Q mixers AND the RRC matched filter fused into the composed
-        # polyphase resampler: one Pallas pass does mixer + 3 kHz LPF +
-        # anti-image + decimation + RRC, with the mixed IF-rate streams,
-        # the im2col windows, and the (…, 2, rds_len) resampler stream
-        # all staying in VMEM (falls back to the unfused resampler +
-        # separate RRC pass off TPU or when the geometry is ineligible,
-        # e.g. MODE1_RDS — the fallback is bitwise that composition)
-        from rtsdr_tpu.ops.pallas_fir import resample_mul2_rrc
-
-        rrc, resamp_zi, rrc_zi = resample_mul2_rrc(
-            extract, nco_i, nco_q, comb_h, state.resamp_zi, rrc_h,
-            state.rrc_zi, r.up, r.down, impl=resamp_impl)
+        # I/Q mixers (XLA fuses them into the resampler's operand), the
+        # composed 3 kHz LPF + anti-image resampler, then the RRC
+        mixed = 2.0 * extract[..., None, :] * jnp.stack([nco_i, nco_q],
+                                                         axis=-2)
+        resamp, resamp_zi = fir_resample(mixed, comb_h, state.resamp_zi,
+                                         r.up, r.down)
+        rrc, rrc_zi = fir_block(resamp, rrc_h, state.rrc_zi)
 
         new_state = RDSState(
             extract_zi=extract_zi, squared_zi=squared_zi, pll=pll_state,

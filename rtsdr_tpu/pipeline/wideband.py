@@ -8,8 +8,8 @@ jitted step through the standard batched receiver (mono + stereo + RDS +
 frame sync per channel).  Channel k sits at center frequency
 ``k * fs_w / K`` (wrapped; ops.channelizer.channel_center_freqs).
 
-The whole thing — channelizer FMA chain, tiny batched IFFT, banded-matmul
-FIRs, fused Pallas PLL pair — is one XLA program per block.
+The whole thing — channelizer matmul, banded-matmul FIRs, the fused PLL
+pair — is one XLA program per block.
 """
 
 from __future__ import annotations
@@ -97,13 +97,11 @@ def make_wideband_receiver(
 
     # 'composed' folds the per-station RF front-end LPF + /10 decimator
     # INTO the channelizer matmul (ops.channelizer.composed_rf_taps):
-    # no channel-rate float plane is ever written (measured 5.6 ms of
-    # the 7.5 ms K=16/B=8 step: dot 1.7 + output transpose 3.9,
-    # tools/profile_channelizer.py), the per-station receivers start at
-    # the discriminator (frontend_impl='if'), and the off-grid residual
-    # NCO moves from the channel rate to the IF rate (10x fewer
-    # samples).  The two-stage path remains for ragged lengths, f64,
-    # and as the parity oracle.
+    # no channel-rate float plane is ever written, the per-station
+    # receivers start at the discriminator (frontend_impl='if'), and the
+    # off-grid residual NCO moves from the channel rate to the IF rate
+    # (10x fewer samples).  The two-stage path remains for ragged
+    # lengths, f64, and as the parity oracle.
     assert channelizer_impl in ("auto", "composed", "pfb")
     p_if = m_per_block // cfg.rf.decim
     composed_ok = (use_u8 and m_per_block % cfg.rf.decim == 0
@@ -122,10 +120,6 @@ def make_wideband_receiver(
     if use_composed:
         g_taps = composed_rf_taps(k, h, rf_lpf_taps(cfg), cfg.rf.decim,
                                   offsets_hz=offs, fs_ch=cfg.rf.fs)
-        # widest output block the IF length divides: fewer window rows
-        # re-read per output (span/stride -> 1 as block grows); 32 wins
-        # ~6% over 16 on-chip at K=16/B=8
-        comp_block = 32 if p_if % 32 == 0 else 16
 
     # per-sample NCO increment and its per-block phase advance are static
     # (offsets are config, not data), so the carried phase stays small
@@ -162,8 +156,7 @@ def make_wideband_receiver(
     def step_fn(state: WidebandState, raw_u8: jax.Array):
         if use_composed:
             raw_iq, chan_zi = composed_channelize_u8(
-                raw_u8, g_taps, state.chan_zi, cfg.rf.decim,
-                block=comp_block)
+                raw_u8, g_taps, state.chan_zi, cfg.rf.decim)
         elif use_u8:
             raw_iq, chan_zi = pfb_channelize_u8(raw_u8, h, state.chan_zi, k)
         else:

@@ -1,8 +1,10 @@
 """ctypes bindings for the native host runtime (librtsdr_runtime.so).
 
-Builds the shared library on first use if missing (g++ via make); every
-function has a pure-NumPy fallback so the framework works without a
-toolchain.
+The shared library is built by ``make`` on first use, and rebuilt
+whenever ``ingest.cpp`` or the ``Makefile`` is newer than it (a library
+built elsewhere is never loaded stale).  Every function has a pure-NumPy
+fallback so the framework works without a toolchain; ``have_native()``
+says which one runs.
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True)
-        except Exception:
-            _build_failed = True
-            return None
+    try:
+        # make compares mtimes: a no-op when the library is current
+        subprocess.run(["make", "-C", _DIR], check=True,
+                       capture_output=True)
+    except (OSError, subprocess.CalledProcessError):
+        _build_failed = True
+        return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:

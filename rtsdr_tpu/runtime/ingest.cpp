@@ -1,6 +1,6 @@
 // Native host runtime: byte-level ingest/emit + prefetching block reader.
 //
-// TPU-native replacement for the reference's host I/O layer
+// Replacement for the reference's host I/O layer
 // (src/iofunc.cpp:61-69 stdin block reader, src/fm_radio.cpp:286-302 audio
 // emitter) and its ring-buffer/thread machinery (src/fm_radio.cpp:51,86-145).
 // The DSP no longer needs the ring buffer — the jitted step consumes whole

@@ -4,15 +4,19 @@ externally; here ``jax.profiler`` traces are first-class)."""
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
 
 import jax
 
+# git-ignored, inside the checkout
+DEFAULT_DIR = str(Path(__file__).resolve().parents[2] / "chiprun_out" / "trace")
+
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/rtsdr_trace"):
+def trace(log_dir: str = DEFAULT_DIR):
     """Capture a TensorBoard-viewable device trace around a block of work.
 
-    with trace("/tmp/t"):
+    with trace():
         state, out = rx.step(state, raw)
         jax.block_until_ready(out)
     """

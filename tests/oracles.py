@@ -4,7 +4,7 @@ Independent transcriptions of the reference's Python golden models
 (model/fmMonoBlock.py, model/fmRDSblock.py, model/fmPll.py,
 model/fmSupportLib.py) — block-chained scipy.signal.lfilter pipelines in
 float64.  These are the fidelity target per SURVEY.md §7; tests compare the
-jitted TPU pipelines against them.
+jitted pipelines against them.
 
 Also contains an FM multiplex synthesizer (mono + pilot + DSB-SC stereo +
 RDS) so end-to-end behavior is testable without the reference's recorded IQ

@@ -1,4 +1,4 @@
-"""MXU matmul conv formulation vs the XLA conv reference."""
+"""Banded-matmul conv formulation vs the XLA conv reference."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,3 +107,72 @@ def test_fir_block_multi_state_chain(rng):
         np.testing.assert_allclose(np.asarray(y2[:, f]), np.asarray(r2),
                                    atol=1e-12)
         np.testing.assert_array_equal(np.asarray(zi2), np.asarray(zr2))
+
+
+@pytest.mark.parametrize("cfg_name,which", [
+    ("MODE0", "rds"),          # x19/80, 3001-tap composed filter
+    ("MODE1", "audio"),        # x24/125, 3624 taps
+    ("MODE1_RDS", "rds"),      # x57/250, 9003-tap composed filter
+])
+def test_resampler_f32_matches_f64_oracle(rng, cfg_name, which):
+    """The float32 production resampler (x-domain polyphase matmul) vs
+    the float64 oracle (dilated conv over the zero-stuffed stream), over
+    two chained blocks at the receiver's geometries.  Bound: float32
+    rounding of a unit-gain filter on unit-variance input."""
+    from rtsdr_tpu import config
+    from rtsdr_tpu.ops.fir import fir_resample, resample_zi
+    from rtsdr_tpu.pipeline.audio import audio_lpf_taps
+    from rtsdr_tpu.pipeline.rds import composed_resampler_taps
+
+    cfg = getattr(config, cfg_name)
+    if which == "rds":
+        h, up, down = composed_resampler_taps(cfg), cfg.rds.up, cfg.rds.down
+    else:
+        h, up, down = audio_lpf_taps(cfg), cfg.mono.up, cfg.mono.down
+    n = cfg.if_len
+    xs = [rng.standard_normal((2, n)) for _ in range(2)]
+    outs = {}
+    for dtype in (jnp.float32, jnp.float64):
+        zi = resample_zi(len(h), (2,), dtype)
+        ys = []
+        for x in xs:
+            y, zi = fir_resample(jnp.asarray(x, dtype), h, zi, up, down)
+            ys.append(np.asarray(y, np.float64))
+        outs[dtype] = np.concatenate(ys, axis=-1)
+    assert outs[jnp.float32].shape == (2, 2 * n * up // down)
+    np.testing.assert_allclose(outs[jnp.float32], outs[jnp.float64],
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("pre", ["square", "mul2"])
+def test_pre_op_fir_f32_matches_f64_oracle(rng, pre):
+    """The elementwise pre-ops that feed a FIR (squared RDS band-pass,
+    stereo mixer into the LPF decimate-by-5) as plain XLA composition:
+    float32 production path vs the float64 conv oracle."""
+    from rtsdr_tpu.ops.fir import fir_decimate, fir_zi
+
+    h = lowpass_taps(240e3, 16e3, 151)
+    x, nco = rng.standard_normal((2, 3, 15360)), rng.standard_normal((3, 15360))
+    outs = {}
+    for dtype in (jnp.float32, jnp.float64):
+        a = jnp.asarray(x[0], dtype)
+        xp = a * a if pre == "square" else 2.0 * a * jnp.asarray(nco, dtype)
+        decim = 1 if pre == "square" else 5
+        y, _ = fir_decimate(xp, h, fir_zi(151, (3,), dtype), decim)
+        outs[dtype] = np.asarray(y, np.float64)
+    np.testing.assert_allclose(outs[jnp.float32], outs[jnp.float64],
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("block", [8, 32, 128, 256])
+def test_matmul_conv_any_block(rng, block):
+    """The banded matmul is exact for any row-block size (the block only
+    trades im2col bytes against banded FLOPs)."""
+    h = lowpass_taps(240e3, 16e3, 151)
+    x = rng.standard_normal((2, 3000 + 150))
+    for stride in (1, 5):
+        ref = np.asarray(_conv1d_valid_xla(jnp.asarray(x), jnp.asarray(h),
+                                           stride))
+        ours = np.asarray(_conv1d_valid_matmul(
+            jnp.asarray(x), jnp.asarray(h), stride, block=block))
+        np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-12)

@@ -68,15 +68,15 @@ _TMC_C = (1 << 15) | (0 << 14) | (2 << 11) | 401
 _TMC_D = 12345
 #  14A EON cross-reference: PI(ON) 0x2BEE, PS(ON) 'EON RDIO', AF 99.9 MHz.
 _EON_PI = 0x2BEE
-#  RT+ tags into radiotext 'MXU RDIO': ITEM.TITLE(1) = chars 0..2 'MXU',
+#  RT+ tags into radiotext 'XLA RDIO': ITEM.TITLE(1) = chars 0..2 'XLA',
 #  ITEM.ARTIST(4) = chars 4..7 'RDIO'; item-running set, toggle 0.
 _RTPLUS_B_LOW = (0 << 4) | (1 << 3) | ((1 >> 3) & 0x7)
 _RTPLUS_C = ((1 & 0x7) << 13) | (0 << 7) | (2 << 1) | ((4 >> 5) & 1)
 _RTPLUS_D = ((4 & 0x1F) << 11) | (4 << 5) | 3
 
 
-def _make_station_groups(n_groups, pi=0x3A5C, pty=5, ps="TPU RDIO",
-                         radiotext="MXU RDIO", ptyn="ROCKHITS"):
+def _make_station_groups(n_groups, pi=0x3A5C, pty=5, ps="JAX RDIO",
+                         radiotext="XLA RDIO", ptyn="ROCKHITS"):
     """3 of 4 groups are 0A (PS segments cycling), every 4th is 2A
     (RadioText, 2 segments) — PS converges fast at the ~0.73 groups/block
     rate of the 2375 bit/s stream.  Every 16th group is 4A clock time;
@@ -305,8 +305,8 @@ def test_groups_decode_pi_pty(decoded_station):
 
 def test_groups_decode_ps_and_radiotext(decoded_station):
     dec = decoded_station
-    assert dec.ps_name == "TPU RDIO"
-    assert dec.radiotext_str == "MXU RDIO"
+    assert dec.ps_name == "JAX RDIO"
+    assert dec.radiotext_str == "XLA RDIO"
 
 
 def test_groups_decode_ptyn(decoded_station):
@@ -361,7 +361,7 @@ def test_groups_decode_rtplus(decoded_station):
     of the assembled RadioText."""
     dec = decoded_station
     assert dec.oda.get("11A") == 0x4BD7
-    assert dec.rtplus == {"ITEM.TITLE": "MXU", "ITEM.ARTIST": "RDIO"}
+    assert dec.rtplus == {"ITEM.TITLE": "XLA", "ITEM.ARTIST": "RDIO"}
     assert dec.rtplus_item_running is True
 
 
@@ -518,7 +518,7 @@ def test_pty_tables_region_select():
 #  --- round-5 service completeness: 15A Long PS, 14B EON-TA, multi-group
 #  --- 8A TMC (VERDICT r4 task 8), each encoded through the standards
 #  --- encoder (oracles.encode_rds_blocks) and decoded by the FULL receiver
-_LONG_PS = "TPU Radio Network — Long PS"     # <= 32 UTF-8 bytes (em dash)
+_LONG_PS = "JAX Radio Network — Long PS"     # <= 32 UTF-8 bytes (em dash)
 _TMC_MULTI_CI = 3
 #  multi-group message: event 802, loc 4242, extent +1; additional data:
 #  speed limit label(3) value 16 (=80 km/h) + add_event label(9) value 615

@@ -13,6 +13,7 @@ from rtsdr_tpu.runtime import (
     emit_int16_interleave,
     have_native,
 )
+from rtsdr_tpu.utils.compile_cache import DEFAULT_DIR
 
 from oracles import synth_multiplex_iq
 
@@ -67,7 +68,7 @@ def test_batch_runner_matches_single_station(tmp_path):
 
     Repetition is the point: a single-staging-buffer BatchRunner raced
     its own in-flight step (jnp.asarray may alias the numpy buffer on
-    CPU or still be DMA-ing it on TPU when the loop refills it) and
+    CPU or still be DMA-ing it on the GPU when the loop refills it) and
     corrupted tens of samples in ~20%% of runs under load.  The runner
     now double-buffers; this test re-runs the whole pipeline several
     times and demands bitwise equality every time."""
@@ -164,7 +165,7 @@ def test_cli_batch_stations(tmp_path):
     f2.write_bytes(iq.tobytes())
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/rtsdr_jax_cache")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(DEFAULT_DIR))
     proc = subprocess.run(
         [sys.executable, "-m", "rtsdr_tpu.cli", "0", "--no-rds",
          "--stations", str(f1), str(f2)],
@@ -187,7 +188,7 @@ def test_cli_end_to_end(tmp_path):
     iq_u8 = synth_multiplex_iq(n_blocks * 307200 // 2)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/rtsdr_jax_cache")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(DEFAULT_DIR))
     proc = subprocess.run(
         [sys.executable, "-m", "rtsdr_tpu.cli", "0", "--no-rds"],
         input=iq_u8.tobytes(), capture_output=True, env=env,
@@ -222,7 +223,7 @@ def test_cli_auto_scan_then_decode(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/rtsdr_jax_cache")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(DEFAULT_DIR))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-m", "rtsdr_tpu.cli", "0", "--no-rds",
@@ -307,7 +308,7 @@ def test_cli_auto_pipe_chunked(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/rtsdr_jax_cache")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(DEFAULT_DIR))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen(
         [sys.executable, "-m", "rtsdr_tpu.cli", "0", "--no-rds",

@@ -38,7 +38,7 @@ def test_mode1_rds_decodes_groups():
 
     assert len(dec.groups) >= 7, f"only {len(dec.groups)} groups assembled"
     assert dec.pi == 0x3A5C
-    assert dec.ps_name == "TPU RDIO"
+    assert dec.ps_name == "JAX RDIO"
     assert dec.clock is not None
     assert (dec.clock.year, dec.clock.month, dec.clock.day) == _CT_DATE[:3]
     # continuous decode: consecutive syncs stay on the 26-bit lattice

@@ -1,7 +1,7 @@
 """Quality gate for the PLL loop-rate-division fast mode.
 
-A scaled-down version of tools/pll_envelope.py's sweep (the full grid,
-run on TPU, is recorded in PERF.md): both production PLL instances see
+A scaled-down version of tools/pll_envelope.py's sweep (the full
+grid): both production PLL instances see
 their tone through their production band-pass at representative detunes
 and in-band SNRs, and the gate asserts the envelope the fast mode is
 shipped under:

@@ -344,8 +344,7 @@ def test_decode_campaign_combined_harsh_robust_regains_sync():
     reference parity AND for the golden model (both 0 groups, campaign
     table).  This scenario sits on the decode cliff: whether whole
     groups assemble depends on the noise realization and on platform fp
-    detail (0-4 groups over seeds, on CPU f32 and TPU alike — measured
-    round 5, both PLL impls).  The STABLE property, asserted here, is
+    detail (0-4 groups over seeds in float32).  The STABLE property, asserted here, is
     sync recovery: the robust clock+derotator re-acquires block sync
     where the reference-parity config stays dark (~1 lucky syndrome).
     Group-level yield at the cliff is tracked by the campaign table

@@ -2,7 +2,8 @@
 
 CPU "devices" share physical cores, so absolute efficiency numbers are
 meaningless here; this validates that the harness runs, shards correctly,
-and reports coherent records.  Real numbers come from pod runs.
+and reports coherent records.  Real numbers come from runs on several
+cards.
 """
 
 from rtsdr_tpu.config import MODE0
@@ -19,30 +20,3 @@ def test_scaling_harness_runs():
     assert recs[0]["efficiency"] == 1.0
     assert recs[1]["channel_blocks_per_sec"] > 0
 
-
-def test_comm_model_matches_timeshard_geometry():
-    """tools/comm_model.py derives its traffic from the config; pin the
-    itemized bytes to the halo sizes timeshard.py actually exchanges."""
-    import os
-    import sys
-
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from tools.comm_model import timeshard_traffic
-
-    tr = timeshard_traffic(MODE0)
-    pp = tr["ppermute_bytes"]
-    # raw-byte halo: 2*(rf.taps-1) uint8 (timeshard.py raw_ext)
-    assert pp["raw_u8_halo"] == 2 * (MODE0.rf.taps - 1)
-    # every IF-rate FIR halo is (taps-1) f32
-    assert pp["pilot_zi"] == (MODE0.stereo.taps - 1) * 4
-    # resampler halo: composed-filter tail in the upsampled domain
-    comb_taps = ((MODE0.rds.taps - 1) * MODE0.rds.up
-                 + MODE0.rds.anti_img_taps)
-    assert pp["resampler_tail"] == (comb_taps - 1) * 4
-    # all_gather: both RRC streams at 57 kS/s
-    rds_len = MODE0.if_len * MODE0.rds.up // MODE0.rds.down
-    assert tr["allgather_payload_bytes"] == 2 * rds_len * 4
-    # the per-boundary total stays small: < 0.1 MB per channel per step
-    total = (tr["ppermute_total"] + 2 * tr["psum_payload_bytes"]
-             + tr["allgather_payload_bytes"])
-    assert total < 100_000

@@ -1,8 +1,14 @@
-"""Time-block sharding must be bit-equivalent to the serial receiver.
+"""Time-block sharding must equal the serial receiver.
 
 Runs on the virtual 8-device CPU mesh; halo exchange + pipelined PLL
 handoff reproduce serial overlap-save semantics exactly (SURVEY.md §7 hard
-part #2).
+part #2).  The float32 FIRs and resamplers are banded matmuls
+(ops/paths.py), and a matmul backend picks its summation order by shape:
+XLA's CPU dot changes kernel below ~96 rows, cuBLAS changes algorithm by
+shape on the GPU.  A time shard's matmuls have fewer rows than the serial
+one's, so float outputs agree to float32 rounding of a 151-tap dot
+(``F32_ATOL``, the bound the blend test below already uses for its
+reduction order), and every decision — RDS syndromes, sync — is equal.
 """
 
 import jax
@@ -20,6 +26,12 @@ from oracles import synth_multiplex_iq
 
 
 N_BLOCKS = 2
+F32_ATOL = 2e-6
+
+
+def _assert_f32_equal(ours, ref, **kw):
+    np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), rtol=0,
+                               atol=F32_ATOL, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -27,8 +39,8 @@ def station_u8():
     return synth_multiplex_iq(N_BLOCKS * MODE0.block_size // 2)
 
 
-def _run_serial(cfg, raw, n_channels, n_blocks, **kw):
-    init_fn, step_fn = make_receiver(cfg, (n_channels,), jnp.float32, **kw)
+def _run_serial(cfg, raw, n_channels, n_blocks, dtype=jnp.float32, **kw):
+    init_fn, step_fn = make_receiver(cfg, (n_channels,), dtype, **kw)
     state = init_fn()
     step = jax.jit(step_fn)
     outs = []
@@ -62,16 +74,37 @@ def test_time_sharded_equals_serial(station_u8, t_shards, ch_shards, deemph):
             np.stack([station_u8[b * bs:(b + 1) * bs]] * n_channels))
         state, out = step_fn(state, blk)
         ref = ser_outs[b]
-        np.testing.assert_array_equal(np.asarray(out.left),
-                                      np.asarray(ref.left), err_msg=f"b{b} L")
-        np.testing.assert_array_equal(np.asarray(out.right),
-                                      np.asarray(ref.right), err_msg=f"b{b} R")
+        _assert_f32_equal(out.left, ref.left, err_msg=f"b{b} L")
+        _assert_f32_equal(out.right, ref.right, err_msg=f"b{b} R")
         np.testing.assert_array_equal(np.asarray(out.rds.syndrome_id),
                                       np.asarray(ref.rds.syndrome_id))
-        np.testing.assert_array_equal(np.asarray(out.rds.symbols_i),
-                                      np.asarray(ref.rds.symbols_i))
+        _assert_f32_equal(out.rds.symbols_i, ref.rds.symbols_i)
 
-    # carried state identical too
+    # carried state equal too
+    for ours, ref in zip(jax.tree.leaves(state), jax.tree.leaves(ser_state)):
+        _assert_f32_equal(ours, ref)
+
+
+def test_time_sharded_equals_serial_f64_bitwise(station_u8):
+    """In float64 every stage runs the conv/scan oracle paths, whose sums
+    do not depend on how many rows a shard holds: there the halo exchange
+    and PLL handoff reproduce the serial receiver bit for bit."""
+    mesh = make_mesh(1, 4)
+    init_fn, step_fn = make_time_sharded_receiver(MODE0, mesh, 1,
+                                                  jnp.float64)
+    state = init_fn()
+    ser_state, ser_outs = _run_serial(MODE0, station_u8, 1, N_BLOCKS,
+                                      dtype=jnp.float64)
+    bs = MODE0.block_size
+    for b in range(N_BLOCKS):
+        state, out = step_fn(state, jnp.asarray(station_u8[None,
+                                                           b * bs:(b + 1) * bs]))
+        for name in ("left", "right"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(out, name)),
+                np.asarray(getattr(ser_outs[b], name)), err_msg=f"b{b} {name}")
+        np.testing.assert_array_equal(np.asarray(out.rds.syndrome_id),
+                                      np.asarray(ser_outs[b].rds.syndrome_id))
     for ours, ref in zip(jax.tree.leaves(state), jax.tree.leaves(ser_state)):
         np.testing.assert_array_equal(np.asarray(ours), np.asarray(ref))
 
@@ -86,8 +119,7 @@ def test_time_sharded_mode1(station_u8):
     for b in range(N_BLOCKS):
         blk = jnp.asarray(np.stack([iq[b * bs:(b + 1) * bs]] * 2))
         state, out = step_fn(state, blk)
-        np.testing.assert_array_equal(np.asarray(out.left),
-                                      np.asarray(ser_outs[b].left))
+        _assert_f32_equal(out.left, ser_outs[b].left)
 
 
 def test_time_sharded_mode1_rds(station_u8):
@@ -106,8 +138,7 @@ def test_time_sharded_mode1_rds(station_u8):
     for b in range(N_BLOCKS):
         blk = jnp.asarray(np.stack([iq[b * bs:(b + 1) * bs]] * 2))
         state, out = step_fn(state, blk)
-        np.testing.assert_array_equal(np.asarray(out.left),
-                                      np.asarray(ser_outs[b].left))
+        _assert_f32_equal(out.left, ser_outs[b].left)
         np.testing.assert_array_equal(np.asarray(out.rds.syndrome_id),
                                       np.asarray(ser_outs[b].rds.syndrome_id))
 
@@ -171,15 +202,13 @@ def test_channel_sharded_equals_serial(station_u8):
 
 
 def test_fused_ingest_halo_consistency(station_u8):
-    """The TPU-default fused uint8 ingest (raw-byte banded matmul) only
-    auto-selects on real TPU; force it on the CPU mesh and check the
-    raw-domain halo exchange reproduces the unsharded (T=1) fused run
-    bit-for-bit across blocks."""
+    """The uint8 ingest + RF front end on a time mesh: the halo exchange
+    must reproduce the unsharded (T=1) run across blocks."""
     outs = {}
     for t_shards in (1, 4):
         mesh = make_mesh(1, t_shards)
         init_fn, step_fn = make_time_sharded_receiver(
-            MODE0, mesh, 2, jnp.float32, ingest_impl="fused")
+            MODE0, mesh, 2, jnp.float32)
         state = init_fn()
         res = []
         bs = MODE0.block_size
@@ -191,14 +220,13 @@ def test_fused_ingest_halo_consistency(station_u8):
         outs[t_shards] = (res, jax.tree.leaves(state))
 
     for b in range(N_BLOCKS):
-        np.testing.assert_array_equal(
-            np.asarray(outs[4][0][b].left), np.asarray(outs[1][0][b].left),
-            err_msg=f"block {b}")
+        _assert_f32_equal(outs[4][0][b].left, outs[1][0][b].left,
+                          err_msg=f"block {b}")
         np.testing.assert_array_equal(
             np.asarray(outs[4][0][b].rds.syndrome_id),
             np.asarray(outs[1][0][b].rds.syndrome_id))
     for a, bb in zip(outs[4][1], outs[1][1]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(bb))
+        _assert_f32_equal(a, bb)
 
 
 @pytest.mark.parametrize("handoff,snr_floor_db", [

@@ -3,7 +3,7 @@
 The reference's debug workflow is: run the chain, logVector key probe
 points into data/*.dat, and inspect with src/example.gnuplot (PSDs are the
 primary verification method where no exact oracle exists — SURVEY.md §4).
-This tool reproduces that workflow end to end for the TPU receiver:
+This tool reproduces that workflow end to end for this receiver:
 
     python tools/dump_diagnostics.py [capture.u8 | --synth N] [--out data]
     gnuplot -p tools/example.gnuplot        # (run from the repo root)
